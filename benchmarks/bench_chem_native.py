@@ -1,7 +1,7 @@
 """Serial native (C++ -O3) chemistry LU baseline on this host CPU.
 
 Exports the tot mechanism's static sparse-LU structure (the same
-symbolic analysis the TPU block solver is built from) to a flat
+symbolic analysis the JAX block solver is built from) to a flat
 schedule, compiles native/chem_lu_bench.cpp, and measures
 decompose + 3-solve "cell steps" per second on ONE core — the
 reference's serial execution model (KppDecomp/KppSolve,
@@ -79,11 +79,13 @@ def main():
     ap.add_argument("--mech", default="tot", choices=["gas", "tot"])
     ap.add_argument("--cells", type=int, default=200)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--mechdir", default="")
     args = ap.parse_args()
 
     from mistra_tpu.chemistry.mech import (load_gas_mechanism,
                                            load_multiphase_mechanism)
-    mechdir = "/root/reference/src/mech"
+    from mistra_tpu.config import MistraConfig
+    mechdir = args.mechdir or MistraConfig(chem=False).mechdir
     mech = (load_gas_mechanism(mechdir) if args.mech == "gas"
             else load_multiphase_mechanism(mechdir, name="tot"))
 

@@ -1,8 +1,12 @@
-"""Per-component timing of the minute step on the current accelerator.
+"""Per-component timing of the minute step on the GPU.
 
 Usage: python benchmarks/profile_step.py [batch] [reps]
-Times each physics component of the substep separately (compiled + warm),
-then the whole substep and minute step, so hotspots are attributable.
+
+Times each physics component of the substep separately (compiled, warm,
+``block_until_ready``), then the whole substep and minute step, for a
+float32 BTZ96 ensemble of ``batch`` columns.  Reads the input tables from
+``INPDIR``, else uses the generated tables (io/synthetic_inputs.py).
+Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -16,47 +20,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
-
-def timeit(name, fn, state, reps):
+def timeit(fn, state, reps):
     out = fn(state)
     jax.block_until_ready(out)
     t0 = time.perf_counter()
     for _ in range(reps):
         out = fn(state)
         jax.block_until_ready(out)
-    dt = (time.perf_counter() - t0) / reps
-    print(f"{name:28s} {dt * 1000.0:10.2f} ms")
-    return dt
+    return (time.perf_counter() - t0) / reps
 
 
-def main():
-    batch = int(sys.argv[1]) if len(sys.argv) > 1 else 64
-    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 3
+def component_times(model, ens, reps: int = 3) -> dict:
+    """{component: seconds per call} for the vmapped substep components
+    (difm, difp, kon, sedp, equil, partdep, radiation), their sum, the
+    whole substep and the minute step, each compiled separately."""
+    from mistra_tpu.physics import diffusion, growth, microphysics
+    from mistra_tpu.physics import sedimentation
 
-    from mistra_tpu.config import MistraConfig
-    from mistra_tpu.model import Model
-    cfg = MistraConfig(chem=False, mic=True, dtype="float32", tw=288.15,
-                       zinv=800.0, dtinv=7.0, ug=8.5, vg=0.0,
-                       nw_prof_opt=1, wmax=-0.005, z0=0.0001, alat=55.0)
-    model = Model(cfg)
-
-    cpu = jax.local_devices(backend="cpu")[0]
-    with jax.default_device(cpu):
-        state = model.init_state()
-        ens = jax.tree.map(
-            lambda x: jnp.asarray(jnp.broadcast_to(x, (batch,) + x.shape)),
-            state)
-    dev = jax.devices()[0]
-    ens = jax.device_put(ens, dev)
-    jax.block_until_ready(ens)
-    print(f"device={dev}, batch={batch}, reps={reps}")
-
-    from mistra_tpu.physics import diffusion, microphysics
-    from mistra_tpu.physics import growth, sedimentation
-
+    cfg = model.cfg
     atm = model.atm
     a0m = model.consts["a0m"]
     b0m = jnp.asarray(model.consts["b0m"])
@@ -64,7 +46,7 @@ def main():
     def f_difm(s):
         met, turb, kinv = diffusion.difm(s.met, s.turb, s.surf, s.micro,
                                          atm, 10.0, cfg.ug, cfg.vg)
-        return met.t, turb.tke
+        return met.t, met.tke, turb.atkh
 
     def f_difp(s):
         return diffusion.difp(s.micro, s.met, s.turb, atm, 10.0).ff
@@ -81,34 +63,45 @@ def main():
         return met.t, mic.ff
 
     def f_partdep(s):
-        vd, xra = sedimentation.partdep(model, s)
-        return vd, xra
+        return sedimentation.partdep(model, s)
 
     def f_rad(s):
         return model._radiation(s, init=False).rad.dtrad
 
-    def f_substep(s):
-        return model.substep(s, 10.0)
-
-    def f_minute(s):
-        return model.minute_step(s)
-
     parts = [("difm", f_difm), ("difp", f_difp), ("kon", f_kon),
              ("sedp", f_sedp), ("equil", f_equil), ("partdep", f_partdep),
-             ("radiation", f_rad), ("substep(all)", f_substep)]
-    total = 0.0
+             ("radiation", f_rad)]
+    out = {}
     for name, f in parts:
-        fn = jax.jit(jax.vmap(f))
-        try:
-            dt = timeit(name, fn, ens, reps)
-        except Exception as exc:
-            print(f"{name:28s} FAILED: {exc!r}")
-            continue
-        if name not in ("substep(all)",):
-            total += dt
-    print(f"{'sum(parts)':28s} {total * 1000.0:10.2f} ms")
-    fn = jax.jit(jax.vmap(f_minute))
-    timeit("minute_step", fn, ens, reps)
+        out[name] = timeit(jax.jit(jax.vmap(f)), ens, reps)
+    out["sum(parts)"] = sum(out.values())
+    out["substep"] = timeit(jax.jit(jax.vmap(
+        lambda s: model.substep(s, 10.0))), ens, reps)
+    out["minute_step"] = timeit(jax.jit(jax.vmap(model.minute_step)), ens,
+                                reps)
+    return out
+
+
+def main():
+    batch = int(sys.argv[1]) if len(sys.argv) > 1 else 128
+    reps = int(sys.argv[2]) if len(sys.argv) > 2 else 3
+
+    from mistra_tpu.config import BTZ96, MistraConfig
+    from mistra_tpu.io.synthetic_inputs import ensure_synthetic_inputs
+    from mistra_tpu.model import Model
+    from mistra_tpu.parallel.mesh import replicate_state
+    from mistra_tpu.utils.compile_cache import configure_compile_cache
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"profile_step: needs a GPU, found {dev.platform}")
+    configure_compile_cache()
+    inpdir = os.environ.get("INPDIR") or ensure_synthetic_inputs()
+    model = Model(MistraConfig(dtype="float32", inpdir=inpdir, **BTZ96))
+    ens = jax.device_put(replicate_state(model.init_state(), batch), dev)
+    print(f"device={dev.device_kind}, batch={batch}, reps={reps}")
+    for name, dt in component_times(model, ens, reps).items():
+        print(f"{name:28s} {dt * 1000.0:10.2f} ms")
 
 
 if __name__ == "__main__":

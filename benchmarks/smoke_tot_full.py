@@ -1,12 +1,12 @@
 """Production-size multiphase smoke: the FULL BTZ96-style column
 (n=150 layers, 70x70 bins, nkc=4 aqueous bins, 421-species tot
-mechanism) advanced through real minute steps on the accelerator.
+mechanism) advanced through real minute steps on the GPU.
 
 This is the configuration the reference spends its life in
-(kpp_driver -> tot_drive for every layer below nf,
-/root/reference/src/kpp.f90:4168-4468); the smoke proves the block-arrow
-solver + full aqueous parameter stack compile and run at production
-shape, and reports the wall time per model minute.
+(kpp_driver -> tot_drive for every layer below nf, kpp.f90:4168-4468);
+the smoke proves the block-arrow solver + full aqueous parameter stack
+compile and run at production shape, and reports the wall time per model
+minute.  Needs the reference tables and mechanism (INPDIR, MECHDIR).
 
 Usage: python benchmarks/smoke_tot_full.py [--minutes 2] [--platform cpu]
 Prints one JSON line.
@@ -40,13 +40,12 @@ def main():
     # model state in f32; the multiphase stiff solves need f64
     # (cfg.chem_f64), which requires x64 support enabled
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    import jax.numpy as jnp
     import numpy as np
 
     from mistra_tpu.config import MistraConfig
     from mistra_tpu.model import Model
+    from mistra_tpu.utils.compile_cache import configure_compile_cache
+    configure_compile_cache()
 
     cfg = MistraConfig(chem=True, mic=True, nkc_l=4, halo=True,
                        iod=False, dtype="float32", tw=288.15,
@@ -54,26 +53,18 @@ def main():
                        nw_prof_opt=1, wmax=-0.005, z0=0.0001, alat=55.0)
     model = Model(cfg)
 
-    cpu = jax.local_devices(backend="cpu")[0]
-    with jax.default_device(cpu):
-        state = model.init_state()
     dev = jax.devices()[0]
-    state = jax.device_put(state, dev)
+    state = jax.device_put(model.init_state(), dev)
 
-    # split dispatch (pre / 6 x substep / post): single fused-minute
-    # programs with the f64 stiff chemistry run for minutes and get
-    # killed by the shared runtime's worker resets; the split form
-    # keeps each program short
-    step = model.jit_minute_step_split()
+    step = model.jit_minute_step()
     t0 = time.time()
-    state = step(state)
-    float(jnp.sum(state.met.t))    # host sync (compile + first step)
+    state = jax.block_until_ready(step(state))   # compile + first step
     t_compile = time.time() - t0
 
     t0 = time.time()
     for _ in range(args.minutes):
         state = step(state)
-    float(jnp.sum(state.met.t))
+    jax.block_until_ready(state)
     dt_min = (time.time() - t0) / args.minutes
 
     conc = np.asarray(state.chem.conc)
@@ -89,7 +80,8 @@ def main():
         "nvar_tot": int(conc.shape[0]),
         "nonconv": int(np.asarray(state.chem.nonconv)),
         "compile_and_first_step_s": round(t_compile, 1),
-        "platform": jax.devices()[0].platform,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }))
 
 

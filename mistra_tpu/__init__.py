@@ -1,9 +1,9 @@
-"""MISTRA-TPU: a TPU-native 1-D marine-boundary-layer model framework.
+"""mistra_tpu: a JAX rebuild of the MISTRA 1-D marine-boundary-layer model.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
-MISTRA Fortran model (meteorology + 2-D spectral bin microphysics + PIFM2
+A from-scratch JAX/XLA rebuild of the capabilities of the reference MISTRA
+Fortran model (meteorology + 2-D spectral bin microphysics + PIFM2
 radiation + photolysis + KPP-style multiphase chemistry), designed for
-batched column ensembles sharded over TPU meshes.
+batched column ensembles on one GPU or sharded over several.
 """
 
 from .config import GridParams, MistraConfig, config_from_namelist

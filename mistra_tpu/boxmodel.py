@@ -6,10 +6,10 @@ The reference can collapse the 1-D column to a single well-mixed box
 radiation are frozen after initialisation and only chemistry (plus
 deposition and sea-salt emission) runs at one level ``n_bl``.
 
-TPU framing: the box is a 1-cell batch of the same chemistry kernel the
-1-D column uses, so this mode shares every compiled kernel with the
-column model; a box ensemble (vmapped over perturbed initial
-conditions) is the natural TPU use of this mode.
+The box is a 1-cell batch of the same chemistry kernel the 1-D column
+uses, so this mode shares every compiled kernel with the column model; a
+box ensemble (vmapped over perturbed initial conditions) is the natural
+accelerator use of this mode.
 
 Parity map: box_init/box_update str.f90:6613-6883, sedc_box
 str.f90:6890-7014, box_partdep str.f90:7021-7104, get_n_box

@@ -17,12 +17,11 @@ block-arrow:
     [           ..    .. ]        A_fg/A_gf: thin gas-coupling panels
     [ Ag1  Ag2  ..   Agg ]        Agg: ~100x100 gas core
 
-The stage solve becomes pure dense-block algebra: one batched no-pivot
-LU + explicit-inverse Pallas kernel over all (cell, bin) diagonal
-blocks (lu_pallas.py), an MXU Schur complement onto the gas core, a
-second inverse there, and matmul/matvec triangular-free solves.  Every
-op is either a VPU kernel over 128-cell lanes or a batched MXU
-contraction — no gathers, no scatters, no sequential substitutions.
+The stage solve becomes dense-block algebra: one batched inverse of all
+(cell, bin) diagonal blocks, a batched-matmul Schur complement onto the
+gas core, a second inverse there, and matmul/matvec solves.  Every op is a
+batched dense contraction or a batched LU inverse (``batched_inv``), with
+no gathers, scatters or sequential substitutions in the solve itself.
 """
 
 from __future__ import annotations
@@ -32,9 +31,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from .lu_pallas import batched_inv_nopivot
-
 _PREC = jax.lax.Precision.HIGHEST
+
+
+def batched_inv(a: jax.Array) -> jax.Array:
+    """inv(A) for a batch of dense matrices [N, m, m] (pivoted LU)."""
+    return jnp.linalg.inv(a)
 
 
 class BlockArrowSolver:
@@ -44,12 +46,9 @@ class BlockArrowSolver:
     the Jacobian context is the tuple of dense block arrays directly.
     """
 
-    def __init__(self, mech, dtype=jnp.float32, use_pallas=None,
-                 interpret=False):
+    def __init__(self, mech, dtype=jnp.float32):
         self.mech = mech
         self.dtype = dtype
-        self.use_pallas = use_pallas
-        self.interpret = interpret
         blk = np.asarray(mech.species_bin[:mech.nvar])
         bins = sorted(b for b in set(blk.tolist()) if b != 0)
         self.nbin = len(bins)
@@ -177,8 +176,8 @@ class BlockArrowSolver:
         kpp.f90:2954-3369), so raw stage-matrix entries hit ~1e18 and
         their elimination products overflow float32 (the reference gets
         away with it only because it is REAL*8 throughout).  Scaling
-        rows to O(1) keeps the no-pivot factorization inside f32 range
-        without changing the solution.
+        rows to O(1) keeps the factorization inside f32 range without
+        changing the solution.
         """
         jbb, jgb, jbg, jgg = jac_ctx
         B = jbb.shape[0]
@@ -201,16 +200,14 @@ class BlockArrowSolver:
         agb = agb * r_g[:, None, :, None]
         agg = agg * r_g[..., None]
 
-        inv_a = batched_inv_nopivot(
-            abb.reshape(B * nb, ma, ma), use_pallas=self.use_pallas,
-            interpret=self.interpret).reshape(B, nb, ma, ma)
+        inv_a = batched_inv(abb.reshape(B * nb, ma, ma)).reshape(
+            B, nb, ma, ma)
         # G_f = Agb_f inv(A_f);  Schur S = Agg - sum_f G_f Abg_f
         gmat = jnp.einsum("bfij,bfjk->bfik", agb, inv_a,
                           precision=_PREC)
         s = agg - jnp.einsum("bfij,bfjk->bik", gmat, abg,
                              precision=_PREC)
-        inv_s = batched_inv_nopivot(s, use_pallas=self.use_pallas,
-                                    interpret=self.interpret)
+        inv_s = batched_inv(s)
         hmat = jnp.einsum("bfij,bfjk->bfik", inv_a, abg,
                           precision=_PREC)
         return (inv_a, gmat, hmat, inv_s, r_aq, r_g,
@@ -236,10 +233,10 @@ class BlockArrowSolver:
     def solve(self, fact, rhs, refine: int = 1):
         """x = (ghinv*I - J)^{-1} rhs via the block factorization.
 
-        One pass of iterative refinement by default: the no-pivot
-        block inverse leaves O(cond*eps) residuals (~1e-4 relative at
-        large h in f64) which cost the stiff integrator extra step
-        rejections; a single correction drops them to ~1e-8.
+        One pass of iterative refinement by default: the explicit
+        block inverses leave O(cond*eps) residuals which can cost the
+        stiff integrator extra step rejections; a single correction
+        reduces them by several orders of magnitude.
         """
         r_aq, r_g = fact[4], fact[5]
         B = rhs.shape[0]

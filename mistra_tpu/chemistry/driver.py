@@ -16,7 +16,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils.pytree import pytree_dataclass
 
 from ..constants import AVOGADRO, GAS_CONST, M_AIR, PI
 from .gas_kernel import GasKernel, load_species_csv
@@ -65,7 +65,7 @@ U0MIN_DEFAULT = 3.48e-2
 U0MIN_BUYS = 1.75e-2
 
 
-@struct.dataclass
+@pytree_dataclass
 class GasChemState:
     sgas: jnp.ndarray       # [nvar, n] concentrations [mol/m3]
     vg: jnp.ndarray         # [nvar] dry deposition velocity [m/s]

@@ -14,7 +14,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils.pytree import pytree_dataclass
 
 from ..constants import AVOGADRO, GAS_CONST, M_AIR, PI
 from . import aqueous as aq
@@ -25,7 +25,7 @@ from .mech import load_multiphase_mechanism
 from .rates import RateEnv
 
 
-@struct.dataclass
+@pytree_dataclass
 class MultiphaseChemState:
     conc: jnp.ndarray       # [nvar_tot, n] all species [mol/m3]
     vg: jnp.ndarray         # [nvar_tot] dry deposition velocities
@@ -645,7 +645,7 @@ class MassFeedbackMixin:
         their soluble mass; carry dissolved species across chemistry-bin
         boundaries with the displaced volume (str.f90:5975-6134).
 
-        TPU design note: the reference mutates ff in place with a
+        Design note: the reference mutates ff in place with a
         direction-dependent loop order; here each dry bin maps
         independently to its bracketing target bins and the update is one
         gather/scatter matrix product per chemistry bin, which is

@@ -3,13 +3,12 @@
 Parity with the KPP-generated integrator of the reference
 (``RosenbrockIntegrator_g``, gas.f:1112-1337; Ros3 coefficients
 gas.f:1474-1513; tolerances RTOL=1e-3, ATOL=1e-25, Hstart=1e-3 from
-gas.f:739-747).  TPU-first design decisions:
+gas.f:739-747).  Design decisions:
 
 * The stage-matrix factorization/solve is pluggable (``linop``): a dense
   batched LU for small mechanisms, the trace-unrolled static sparse LU
   (sparse_lu.py) for the gas mechanism, or the block-arrow dense solver
-  (block_solver.py) whose Pallas kernels serve the 421-species tot
-  mechanism.
+  (block_solver.py) for the 421-species tot mechanism.
 * The per-cell adaptive stepping (accept/reject, step-size control)
   becomes a masked while-loop: all cells advance together, finished or
   rejected cells mask their updates, and the loop runs until every cell
@@ -25,6 +24,8 @@ from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
+
+from ..utils import loop_stats
 
 # Ros3 coefficients (L-stable, 3 stages; gas.f:1474-1513)
 ROS_A21 = 1.0
@@ -215,6 +216,7 @@ def integrate(fun, linop, y0, tend, opts: RosOptions = RosOptions()):
              jnp.zeros((B,), bool))
     y, t, h, _, _, nstp, done, failed = jax.lax.while_loop(
         cond, body, carry)
+    loop_stats.record("rosenbrock_steps", jnp.max(nstp))
     info = {"t": t, "nsteps": nstp, "done": done, "failed": failed,
             "n_failed": jnp.sum(failed, dtype=jnp.int32)}
     return y, info

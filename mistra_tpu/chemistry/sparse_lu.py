@@ -4,18 +4,17 @@ cells.
 The reference's KPP output factorizes I/(h*gamma) - J with a pivot-free
 Doolittle elimination over a fixed symbolic structure (``KppDecomp_g``
 gas.f:6142-6177, structure from ``gas_Sparse.h`` LU_CROW/ICOL/DIAG) and
-fully unrolled triangular solves (``KppSolve_g`` gas.f:6206+).  Dense
-batched LU with partial pivoting costs ~68 ms per Rosenbrock iteration on
-TPU at [2048, 102, 102]; the mechanism matrix is ~1% dense, so this
-module reproduces the KPP design the TPU way:
+fully unrolled triangular solves (``KppSolve_g`` gas.f:6206+).  The
+mechanism matrix is ~1% dense, so instead of a dense batched LU this
+module reproduces the KPP design with the cell batch vectorized:
 
 * symbolic analysis on the host (numpy): Jacobian pattern from the
   stoichiometry, greedy minimum-degree ordering (KPP relies on its own
   species ordering), symbolic fill-in, and a flat elimination schedule;
 * the factorization/solve are *unrolled at trace time* into pure
   elementwise ops on [B]-shaped value slots, so the whole Rosenbrock
-  stage becomes one fused VPU loop over the cell batch — no gathers, no
-  pivoting, no [B, n, n] materialization.
+  stage becomes one fused elementwise loop over the cell batch — no
+  gathers, no pivoting, no [B, n, n] materialization.
 """
 
 from __future__ import annotations

@@ -47,6 +47,8 @@ def main(argv=None):
         jax.config.update("jax_platforms", args.platform)
     if args.x64:
         jax.config.update("jax_enable_x64", True)
+    from .utils.compile_cache import configure_compile_cache
+    configure_compile_cache()
 
     import numpy as np
 
@@ -91,8 +93,11 @@ def main(argv=None):
     if ncio.available():
         # reference-layout netCDF groups via the native async writer
         writer = ncio.NetCDFOutputWriter(args.outdir, model)
+        print(f"output: native netCDF writer -> {args.outdir}/*.nc")
     else:
-        writer = OutputWriter(os.path.join(args.outdir, "output.h5"), model)
+        writer = OutputWriter(args.outdir, model)
+        print(f"output: numpy writer -> {args.outdir}/*.npz (native "
+              f"netCDF writer unavailable: {ncio._LIB_ERR!r})")
     writer.snapshot(state, particles=cfg.mic)
 
     step = step_owner.jit_minute_step()

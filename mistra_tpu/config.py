@@ -1,4 +1,4 @@
-"""Typed configuration for MISTRA-TPU.
+"""Typed configuration for mistra_tpu.
 
 One dataclass covers the three configuration tiers of the reference model
 (environment variables, the ``&mistra_cfg`` Fortran namelist with ~60
@@ -160,7 +160,7 @@ class MistraConfig:
     outdir: str = ""
     mechdir: str = ""
 
-    # --- TPU-native additions ---------------------------------------------
+    # --- additions beyond the reference -----------------------------------
     grid: GridParams = field(default_factory=GridParams)
     dtype: str = "float64"           # compute dtype: "float64" | "float32"
     n_columns: int = 1               # ensemble width (batched independent columns)
@@ -195,6 +195,14 @@ class MistraConfig:
             self.iod = False
         if self.dtype not in ("float64", "float32"):
             raise ValueError("dtype must be float64 or float32")
+
+
+# BTZ96 radiation-fog case (Bott, Trautmann & Zdunkowski 1996; the
+# reference's namelist.BTZ96 with chem=F, mic=T): the flagship column
+# configuration of the benchmarks and the GPU smoke test.
+BTZ96 = dict(chem=False, mic=True, tw=288.15, zinv=800.0, dtinv=7.0,
+             ug=8.5, vg=0.0, nw_prof_opt=1, wmax=-0.005, z0=0.0001,
+             alat=55.0)
 
 
 # --------------------------------------------------------------------------

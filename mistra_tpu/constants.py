@@ -1,4 +1,4 @@
-"""Physical constants of the MISTRA-TPU framework.
+"""Physical constants of the mistra_tpu framework.
 
 Semantics follow the reference model's constant set (see
 /root/reference/src/constants.f90) so that numerical parity tests are

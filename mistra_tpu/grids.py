@@ -1,6 +1,6 @@
 """Model grids: atmosphere, soil, and the 2-D microphysics mass grids.
 
-TPU-first design note: all grids are *static host-side data* computed once in
+Design note: all grids are *static host-side data* computed once in
 float64 numpy at model construction, then closed over by jitted step
 functions as device constants.  Nothing here traces.
 

@@ -8,9 +8,11 @@ bounded queue of snapshots into libnetcdf, so the JAX step never blocks
 on disk (``mio_put_async``), and the classic-format files remain readable
 by the reference's NCL validation scripts (plots/*.ncl).
 
-The native library is dlopen'd lazily and rebuilt with ``make`` if the
-shared object is missing (g++ is part of the baked toolchain); when
-neither works the caller falls back to the HDF5 writer (io/output.py).
+The shared object is not kept in git: it is built from
+``native/mistra_io.cpp`` with ``make`` at first use, into a temporary name
+that is then renamed into place, so that concurrent processes never load a
+half-written library.  Where no C++ toolchain or no libnetcdf exists the
+caller falls back to the numpy writer (io/output.py).
 """
 
 from __future__ import annotations
@@ -32,11 +34,14 @@ def _load():
         return _LIB
     path = os.path.abspath(os.path.join(_NATIVE_DIR, "libmistra_io.so"))
     if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
         try:
-            subprocess.run(["make", "-C", os.path.dirname(path)],
+            subprocess.run(["make", "-C", os.path.dirname(path),
+                            f"TARGET={os.path.basename(tmp)}"],
                            check=True, capture_output=True, timeout=120)
-        except Exception as exc:  # no toolchain — fall back to HDF5
-            _LIB_ERR = exc
+            os.replace(tmp, path)
+        except (OSError, subprocess.SubprocessError) as exc:
+            _LIB_ERR = exc        # no toolchain: numpy writer instead
             return None
     try:
         lib = ct.CDLL(path)

@@ -1,12 +1,12 @@
-"""Science output writer.
+"""Science output writer without native dependencies.
 
-Replaces the reference's netCDF output stack (``out_netCDF.f``:30-4676,
-one variable group per subsystem: grid / met / mic / chem_gas / chem_aq /
-jrate) and the hourly ASCII profiles (``profm``/``profc``/``profr``,
-outp.f90:1745-2277) with an HDF5 file of the same variable groups
-(netCDF4 files are HDF5; any netCDF tooling that reads HDF5 applies).
-Cadences follow the reference: 15-min group snapshots, 30-min particle
-spectra (str.f90:479-508).
+Stands in for the native netCDF writer (io/netcdf.py) where that library
+cannot be built or libnetcdf is missing.  It keeps the reference's
+variable groups (``out_netCDF.f``:30-4676: grid / met / mic / chem_gas /
+chem_aq / jrate) and cadences (15-min group snapshots, 30-min particle
+spectra; str.f90:479-508), written with numpy alone: ``grid.npz`` once,
+then one ``snapshot_NNNNN.npz`` per snapshot whose keys are
+``group/name``.
 """
 
 from __future__ import annotations
@@ -17,73 +17,60 @@ import numpy as np
 
 
 class OutputWriter:
-    """Appends time-slab snapshots of the state to an HDF5 file."""
+    """Writes time-slab snapshots of the state as numpy ``.npz`` files."""
 
-    def __init__(self, path: str, model):
-        import h5py
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self.path = path
+    def __init__(self, outdir: str, model):
+        os.makedirs(outdir, exist_ok=True)
+        self.outdir = outdir
         self.model = model
-        self.h5 = h5py.File(path, "w")
         self._isnap = 0
         self._write_grid()
 
     # ------------------------------------------------------------------
     def _write_grid(self):
-        g = self.h5.create_group("grid")
         atm = self.model.grids.atm
         mic = self.model.grids.micro
-        for name, arr in [("eta", atm.eta), ("etw", atm.etw),
-                          ("detw", atm.detw), ("deta", atm.deta),
-                          ("rn", mic.rn), ("rq", mic.rq), ("rw", mic.rw),
-                          ("en", mic.en), ("e", mic.e), ("rpw", mic.rpw)]:
-            g.create_dataset(name, data=np.asarray(arr))
+        grid = {name: np.asarray(arr) for name, arr in [
+            ("eta", atm.eta), ("etw", atm.etw), ("detw", atm.detw),
+            ("deta", atm.deta), ("rn", mic.rn), ("rq", mic.rq),
+            ("rw", mic.rw), ("en", mic.en), ("e", mic.e),
+            ("rpw", mic.rpw)]}
         if self.model._chemistry is not None:
-            names = np.array(self.model._chemistry.mech.species, dtype="S")
-            g.create_dataset("gas_species", data=names)
-
-    def _append(self, group: str, name: str, arr):
-        arr = np.asarray(arr)
-        key = f"{group}/{name}"
-        if key not in self.h5:
-            self.h5.create_dataset(
-                key, shape=(0,) + arr.shape, maxshape=(None,) + arr.shape,
-                dtype=arr.dtype, chunks=(1,) + arr.shape)
-        ds = self.h5[key]
-        ds.resize(ds.shape[0] + 1, axis=0)
-        ds[-1] = arr
+            grid["gas_species"] = np.array(self.model._chemistry.mech.species)
+        np.savez(os.path.join(self.outdir, "grid.npz"), **grid)
 
     # ------------------------------------------------------------------
     def snapshot(self, state, particles: bool = False):
         """Write one 15-min snapshot (particle spectra optional, 30-min)."""
         met = state.met
-        self._append("met", "time", state.tim.time)
+        out = {"met/time": state.tim.time}
         for name in ("u", "v", "t", "theta", "xm1", "xm2", "feu", "tke",
                      "rho", "p"):
-            self._append("met", name, getattr(met, name))
-        self._append("met", "dtrad", state.rad.dtrad)
-        self._append("met", "u0", state.rad.u0)
-        self._append("met", "atkh", state.turb.atkh)
+            out[f"met/{name}"] = getattr(met, name)
+        out["met/dtrad"] = state.rad.dtrad
+        out["met/u0"] = state.rad.u0
+        out["met/atkh"] = state.turb.atkh
 
         if self.model.cfg.mic:
-            self._append("mic", "fsum", state.micro.fsum)
-            self._append("mic", "lcl", state.micro.lcl)
-            self._append("mic", "lct", state.micro.lct)
+            out["mic/fsum"] = state.micro.fsum
+            out["mic/lcl"] = state.micro.lcl
+            out["mic/lct"] = state.micro.lct
             from ..physics.projection import oneD_dist
-            part1d = oneD_dist(state.micro.ff, self.model.grids.micro,
-                               self.model.cfg.grid.nf)
-            self._append("mic", "part1D", part1d)
+            out["mic/part1D"] = oneD_dist(state.micro.ff,
+                                          self.model.grids.micro,
+                                          self.model.cfg.grid.nf)
             if particles:
-                self._append("mic", "ff", state.micro.ff)
+                out["mic/ff"] = state.micro.ff
 
         if state.chem is not None:
-            self._append("chem_gas", "sgas", state.chem.sgas)
-            self._append("jrate", "photol_j", state.chem.photol_j)
+            out["chem_gas/sgas"] = state.chem.sgas
+            out["jrate/photol_j"] = state.chem.photol_j
             if hasattr(state.chem, "sl1"):
-                self._append("chem_aq", "sl1", state.chem.sl1)
-                self._append("chem_aq", "sion1", state.chem.sion1)
+                out["chem_aq/sl1"] = state.chem.sl1
+                out["chem_aq/sion1"] = state.chem.sion1
+        path = os.path.join(self.outdir, f"snapshot_{self._isnap:05d}.npz")
+        np.savez(path, **{k: np.asarray(v) for k, v in out.items()})
         self._isnap += 1
-        self.h5.flush()
 
     def close(self):
-        self.h5.close()
+        pass

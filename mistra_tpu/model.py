@@ -20,6 +20,7 @@ from .config import MistraConfig
 from .constants import PI
 from .grids import Grids, make_grids
 from .init import AstroConsts, initial_state, solar_constants
+from .io.synthetic_inputs import announce_if_synthetic
 from .physics import diffusion, microphysics, surface
 from .physics.turbulence import atk0
 from .state import ModelState
@@ -48,6 +49,7 @@ class Model:
     def __init__(self, cfg: MistraConfig):
         self.cfg = cfg
         self.grids: Grids = make_grids(cfg)
+        announce_if_synthetic(cfg.inpdir)
         self.clarke = surface.load_clarke_table(cfg.inpdir)
         self.astro: AstroConsts = solar_constants(cfg)
         self.consts: dict = {}
@@ -70,21 +72,16 @@ class Model:
     def init_state(self, host_init: bool = True) -> ModelState:
         """Build the initial state (init sequence of str.f90:72-321).
 
-        The init path is eager (it runs once, with data-dependent table
-        setup), so by default it executes on the host CPU backend and the
-        caller ``jax.device_put``s the result onto accelerators: on a
-        remote/tunneled TPU, per-op eager dispatch costs an RPC round trip
-        each, which turns the ~2000-op init graph into minutes of latency.
+        The init path runs once, eagerly, op by op.  By default it runs on
+        the host CPU and the caller ``jax.device_put``s the result: for
+        the float32 BTZ96 column on an H100 (700 W), eager init on the GPU
+        took 61-63 s against 34-35 s on the host CPU plus the transfer,
+        because every eager op compiles and launches a kernel of its own.
         """
         import contextlib
         ctx = contextlib.nullcontext()
-        if host_init:
-            try:
-                cpus = jax.local_devices(backend="cpu")
-                if jax.default_backend() != "cpu" and cpus:
-                    ctx = jax.default_device(cpus[0])
-            except RuntimeError:
-                pass
+        if host_init and jax.default_backend() != "cpu":
+            ctx = jax.default_device(jax.local_devices(backend="cpu")[0])
         with ctx:
             return self._init_state_impl()
 
@@ -310,8 +307,8 @@ class Model:
         state = self.pre_minute(state)
 
         # 6 × 10-s fractional steps as a scan: one substep body in the
-        # compiled program instead of six unrolled copies (the unrolled
-        # form produced an HLO large enough to destabilize TPU compiles)
+        # compiled program instead of six unrolled copies, which keeps the
+        # program and its compile time six times smaller
         def _sub(s, _):
             return self.substep(s, 10.0), None
 
@@ -321,31 +318,3 @@ class Model:
     # ------------------------------------------------------------------
     def jit_minute_step(self):
         return jax.jit(self.minute_step)
-
-    def jit_minute_step_split(self, vmapped: bool = False, donate: bool
-                              = True):
-        """One minute as three compiled programs dispatched from the host:
-        pre (clock+partdep), 6 × substep, post (radiation+photolysis).
-
-        Workaround path: on the current TPU runtime a single program
-        containing two condensation-growth solves faults the device
-        (round-3 bisect: any chained ``kon``+``kon`` program dies, while
-        iterated dispatch of the identical compiled substep is stable).
-        The split costs one host round trip per program — negligible next
-        to the substep compute at production batch sizes.
-        """
-        def wrap(f):
-            g = jax.vmap(f) if vmapped else f
-            return jax.jit(g, donate_argnums=(0,) if donate else ())
-
-        pre = wrap(self.pre_minute)
-        sub = wrap(lambda s: self.substep(s, 10.0))
-        post = wrap(self.post_minute)
-
-        def step(state):
-            state = pre(state)
-            for _ in range(6):
-                state = sub(state)
-            return post(state)
-
-        return step

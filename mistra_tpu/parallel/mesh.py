@@ -1,11 +1,10 @@
 """Device-mesh sharding of column ensembles.
 
-TPU-native scale-out (SURVEY.md section 2.4 / 5.8): columns are physically
-independent in this model family, so the primary parallel axis is the
-ensemble ("dp"); the 2-D spectral bin axis provides an intra-column
-model-parallel axis ("tp") for the microphysics block when a single chip's
-batch does not fill the VPU.  XLA inserts the collectives (reductions over
-the bin axis for fsum/xm2/optics sums ride the ICI).
+Scale-out (SURVEY.md section 2.4 / 5.8): columns are physically
+independent in this model family, so the one parallel axis is the
+ensemble ("dp"): every device advances its own columns and no collective
+runs.  The GPUs of one host are joined all to all, so a 1-D mesh is all
+the layout needs.
 """
 
 from __future__ import annotations
@@ -16,24 +15,19 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
-def make_mesh(n_devices: int | None = None, tp: int = 1,
-              devices=None) -> Mesh:
-    """Build a ("dp", "tp") mesh over the available devices."""
+def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
+    """Build a 1-D "dp" mesh over the default backend's devices.
+
+    Asking for more devices than exist raises ``ValueError``.
+    """
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            # fall back to the (possibly virtualised) host platform
-            devices = jax.devices("cpu")
     if n_devices is None:
         n_devices = len(devices)
     if len(devices) < n_devices:
         raise ValueError(
             f"requested {n_devices} devices but only {len(devices)} available")
-    devices = np.asarray(devices[:n_devices])
-    if n_devices % tp != 0:
-        raise ValueError(f"n_devices={n_devices} not divisible by tp={tp}")
-    dp = n_devices // tp
-    return Mesh(devices.reshape(dp, tp), axis_names=("dp", "tp"))
+    return Mesh(np.asarray(devices[:n_devices]), axis_names=("dp",))
 
 
 def replicate_state(state, batch: int):
@@ -42,53 +36,42 @@ def replicate_state(state, batch: int):
                         state)
 
 
-def _spec_for(path: str, leaf, mesh: Mesh) -> P:
-    """Sharding rule: batch axis over dp; ff's nka axis over tp."""
-    if leaf.ndim == 0:
-        return P()
-    if path.endswith(".ff") and leaf.ndim == 4:
-        # [B, nkt, nka, n]: batch over dp, dry-aerosol bins over tp
-        return P("dp", None, "tp", None)
-    return P(("dp",), *([None] * (leaf.ndim - 1)))
-
-
 def shard_state(state, mesh: Mesh):
-    """Place a batched state on the mesh with the ensemble sharding rules."""
-    flat, treedef = jax.tree_util.tree_flatten_with_path(state)
-    placed = []
-    for path, leaf in flat:
-        name = jax.tree_util.keystr(path)
-        spec = _spec_for(name, leaf, mesh)
-        placed.append(jax.device_put(leaf, NamedSharding(mesh, spec)))
-    return jax.tree_util.tree_unflatten(treedef, placed)
+    """Place a batched state on the mesh: the batch axis over "dp"."""
+    return jax.tree.map(
+        lambda x: jax.device_put(
+            x, NamedSharding(mesh, P("dp") if x.ndim else P())), state)
 
 
 def make_ensemble_step(model, mesh: Mesh | None = None, donate: bool = True):
     """Jitted ensemble step: vmap of the minute step over the batch axis.
 
-    With a sharded input state, XLA propagates the dp/tp sharding through
-    the whole step; no manual collectives are needed because columns are
-    independent and bin reductions lower to ICI collectives automatically.
+    With a mesh, the step runs under ``shard_map``: every device advances
+    its own "dp" shard of the columns, so the GPU kernels inside the step
+    see local arrays and no collective runs; columns are independent.  Without a mesh it is ``jit(vmap(...))`` on
+    the devices the state lives on.
     """
     step = jax.vmap(model.minute_step)
+    if mesh is not None:
+        step = jax.shard_map(step, mesh=mesh, in_specs=P("dp"),
+                             out_specs=P("dp"), check_vma=False)
     return jax.jit(step, donate_argnums=(0,) if donate else ())
 
 
 # --------------------------------------------------------------------------
-# multi-host orchestration (SURVEY.md section 5.8: jax.distributed + a
-# ("hosts", "chips") factorization of the dp axis; DCN between hosts,
-# ICI within)
+# multi-process orchestration (SURVEY.md section 5.8: jax.distributed + a
+# ("hosts", "dp") factorization of the ensemble axis)
 # --------------------------------------------------------------------------
 
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None):
-    """Initialize multi-host JAX (idempotent).
+    """Initialize multi-process JAX.
 
-    On a real pod slice the three arguments come from the launcher
-    (or are auto-detected on Cloud TPU); single-process runs are a
-    no-op.  After this, jax.devices() spans every host and the meshes
-    below shard the ensemble across all of them.
+    The launcher passes all three arguments (``coordinator`` is
+    ``host:port``); single-process runs are a no-op.  After this,
+    jax.devices() spans every process and the meshes below shard the
+    ensemble across all of them.
     """
     if num_processes in (None, 1):
         return False
@@ -99,38 +82,22 @@ def init_distributed(coordinator: str | None = None,
     return True
 
 
-def make_host_mesh(tp: int = 1, devices=None) -> Mesh:
-    """("hosts", "dp", "tp") mesh: the leading axis separates hosts so
-    the batch sharding puts whole sub-ensembles on each host and the
-    only cross-host traffic is diagnostics reductions (DCN-tolerant;
-    columns are independent so no halo exchange exists).
+def make_host_mesh(devices=None) -> Mesh:
+    """("hosts", "dp") mesh: the leading axis separates hosts so the batch
+    sharding puts whole sub-ensembles on each host and the only cross-host
+    traffic is diagnostics reductions (columns are independent so no halo
+    exchange exists).
     """
     if devices is None:
         devices = jax.devices()
     n_hosts = max(1, jax.process_count())
-    per_host = len(devices) // n_hosts
-    if per_host % tp != 0:
-        raise ValueError(f"{per_host} devices/host not divisible by tp")
-    arr = np.asarray(devices).reshape(n_hosts, per_host // tp, tp)
-    return Mesh(arr, axis_names=("hosts", "dp", "tp"))
-
-
-def host_spec_for(path: str, leaf, mesh: Mesh):
-    """Sharding rule on a ("hosts", "dp", "tp") mesh: batch over the
-    combined (hosts, dp) axes; ff's nka axis over tp."""
-    if leaf.ndim == 0:
-        return P()
-    if path.endswith(".ff") and leaf.ndim == 4:
-        return P(("hosts", "dp"), None, "tp", None)
-    return P(("hosts", "dp"), *([None] * (leaf.ndim - 1)))
+    arr = np.asarray(devices).reshape(n_hosts, len(devices) // n_hosts)
+    return Mesh(arr, axis_names=("hosts", "dp"))
 
 
 def shard_state_hosts(state, mesh: Mesh):
-    """Place a batched state on a multi-host mesh."""
-    flat, treedef = jax.tree_util.tree_flatten_with_path(state)
-    placed = []
-    for path, leaf in flat:
-        name = jax.tree_util.keystr(path)
-        spec = host_spec_for(name, leaf, mesh)
-        placed.append(jax.device_put(leaf, NamedSharding(mesh, spec)))
-    return jax.tree_util.tree_unflatten(treedef, placed)
+    """Place a batched state on a multi-host mesh: the batch axis over the
+    combined (hosts, dp) axes."""
+    return jax.tree.map(
+        lambda x: jax.device_put(x, NamedSharding(
+            mesh, P(("hosts", "dp")) if x.ndim else P())), state)

@@ -7,7 +7,7 @@ sections and O(1D)/NO3- quantum yields; ``four_intf``/``qfts``/``adjust``/
 ``qccfe``/``coeff*``/``qcfel`` (jrate.f:1845-3050) the Fu (1991)
 delta-four-stream actinic flux solver.
 
-TPU-first deviation: the reference computes actinic flux at only NW=7
+Deviation: the reference computes actinic flux at only NW=7
 wavelengths and reconstructs the spectral integrals with fitted lookup
 tables (``photo_cal``, jrate.f:4495+).  Here the four-stream solve runs
 for all 176 intervals at once (wavelength = batch axis) and each J-rate is

@@ -5,11 +5,11 @@ Parses the reference data files (``CROSS_INIT``/jrate.f:767-1140 reads
 flux.dat / sig0900.dat / cheb_coeff.dat; qyield.dat holds the CH2O, NO3
 and NO2 quantum-yield channels).
 
-Design note (TPU-first): the reference collapses the 176-interval spectrum
+Design note: the reference collapses the 176-interval spectrum
 into a 7-interval band model with fitted lookup tables (lookt0900.dat,
 Landgraf & Crutzen 1998) to save serial CPU time.  Here the full
 176-interval actinic-flux calculation is carried out directly — the
-wavelength axis is just another batch dimension on TPU — so the lookup
+wavelength axis is just another batch dimension — so the lookup
 machinery is replaced by the exact spectral integral it approximates.
 """
 

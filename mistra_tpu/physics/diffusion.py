@@ -2,7 +2,7 @@
 
 Reference parity: ``difm`` (momentum/heat/moisture/TKE, str.f90:2944-3131),
 ``difp`` (4900-bin particle spectrum, str.f90:3137-3265) and ``difc``
-(chemical species, str.f90:3271-3450).  TPU-first: all fields sharing an
+(chemical species, str.f90:3271-3450).  All fields sharing an
 exchange-coefficient set are solved in ONE Thomas sweep with a trailing
 field axis; the spectrum solve treats the 4900 bins as the vector axis.
 """

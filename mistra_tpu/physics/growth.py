@@ -6,10 +6,10 @@ Klett kinetic corrections and a Newton iteration on the mean saturation,
 ``advec`` (str.f90:5321-5516) Bott positive-definite polynomial flux
 advection along the water-mass axis with per-bin Courant time splitting.
 
-TPU-first: all levels are processed in parallel (vmap over the level axis);
-the per-source-bin characteristic walk of ``advec`` becomes a fixed-bound
-masked loop vectorized over (level, dry-bin, water-bin); the final deposit
-is a one-hot matmul scatter (MXU-friendly).
+All levels are processed in parallel (one block over the level axis); the
+per-source-bin characteristic walk of ``advec`` becomes a closed-form walk
+vectorized over (level, dry-bin, water-bin), and the final deposit a
+branch-free shift-accumulate.
 """
 
 from __future__ import annotations
@@ -20,32 +20,26 @@ import jax
 import jax.numpy as jnp
 
 from ..constants import CP, PI, R0, R1, RHOW
+from ..utils import loop_stats
 
-# Deposit strategy for the Bott advection scatter (see bott_bin_advection):
-# "reduce" = masked broadcast-reduce, "scatter" = XLA scatter-add.  Round-4
-# finding: XLA scatter (and gather) lower to serialized per-element loops
-# when the op carries vmap batch dimensions on this TPU runtime — a single
-# scattered deposit inside the vmapped growth loop cost ~2 s/call vs
-# 0.08 ms for the branch-free compare-reduce form.  The reduce form is
-# mandatory on TPU; scatter is kept only for A/B validation.
+# Deposit strategy for the Bott advection (see bott_bin_advection):
+# "reduce" = branch-free shift-accumulate (banded walk) or masked
+# broadcast-reduce (other walks), "scatter" = XLA scatter-add.
 _DEPOSIT = os.environ.get("MISTRA_BOTT_DEPOSIT", "reduce")
 
 # Characteristic-walk strategy: "banded" = closed-form walk evaluated on
 # a band of at most MISTRA_BOTT_BAND destination bins via rolled slices
-# (O(nkt*J) work, everything 2-D and fusion-friendly); "vector" =
+# (O(nkt*J) elementwise work on rolled copies of the rows); "vector" =
 # closed-form prefix-sum walk with full [nkt, nkt] broadcast compares
 # (exact for arbitrarily long walks but O(nkt^2) with large HBM
 # intermediates); "loop" = the literal per-bin fori_loop walk of the
-# reference (str.f90:5427-5454).  The loop form is 72 sequential gather
-# passes over the full [batch, n, nka, nkt] block per Newton iteration —
-# the dominant cost of the whole model on TPU and the trigger of a device
-# watchdog fault when two growth solves land in one program.  The banded
-# form with J = nkt is exact (identical to "vector"); smaller J caps the
+# reference (str.f90:5427-5454), nkt+2 sequential gather passes over the
+# full [batch, n, nka, nkt] block per Newton iteration.  The banded form
+# with J = nkt is exact (identical to "vector"); smaller J caps the
 # per-step walk length at J bins, which is exact whenever no particle
 # crosses more than J bins in one 10-s substep (J=32 is never exceeded in
 # the BTZ96 fog case; the clamp is positive-definite and conservative).
-# "auto" resolves at trace time: "pallas" (fused VMEM-resident kernel,
-# physics/bott_pallas.py) on TPU, "banded" XLA elsewhere.
+# "auto" = the banded walk as GPU kernels on NVIDIA GPUs, as XLA elsewhere.
 _WALK = os.environ.get("MISTRA_BOTT_WALK", "auto")
 _BAND = int(os.environ.get("MISTRA_BOTT_BAND", "32"))
 
@@ -85,8 +79,8 @@ def _batched_searchsorted(S, t):
     """First index k with S[..., k] >= t[..., j], per trailing row.
 
     S: [..., nkt] sorted ascending per row; t: [..., m] targets.
-    Branch-free compare-and-count (no gather: XLA gathers serialize under
-    vmap batch dimensions on TPU; the [m, nkt] broadcast compare fuses)."""
+    Branch-free compare-and-count (the [m, nkt] broadcast compare fuses
+    into the reduction)."""
     less = S[..., None, :] < t[..., :, None]        # [..., m, nkt]
     return jnp.sum(less, axis=-1).astype(jnp.int32)
 
@@ -95,11 +89,34 @@ def _take1(arr, idx):
     """arr[..., idx[..., j]] per trailing row, gather-free.
 
     arr: [..., nkt]; idx: [..., m] int32 in [0, nkt).  One-hot
-    compare-reduce instead of take_along_axis (same TPU reasoning as
-    ``_batched_searchsorted``)."""
+    compare-reduce instead of take_along_axis."""
     k = jnp.arange(arr.shape[-1])
     hit = idx[..., :, None] == k                    # [..., m, nkt]
     return jnp.sum(jnp.where(hit, arr[..., None, :], 0), axis=-1)
+
+
+def walk_end(dt, kstar, b, kstop, t_k, u_k, t_b, u_b, nkt):
+    """Final position of a rightward walk from its stop bins.
+
+    kstar: first bin at which the time budget runs out; b: first
+    non-positive-velocity bin after the source; kstop = min(kstar, b);
+    t_k/t_b: time from the source to the entry of bins kstop/b; u_k/u_b:
+    velocities in those bins."""
+    dtype = u_k.dtype
+    # fractional stop inside bin kstop (time exhausted before the barrier)
+    seg = jnp.minimum(dt - t_k, 1.0 / jnp.maximum(u_k, 1e-30))
+    x_frac = kstop.astype(dtype) + u_k * seg
+    # barrier cases (kstar >= b, so remaining R > eps at the barrier bin)
+    R = dt - t_b
+    dt0 = jnp.minimum(1.0 / jnp.maximum(jnp.abs(u_b), 1e-30), R)
+    xb = b.astype(dtype) + u_b * dt0
+    x_osc = jnp.where(R - dt0 > _WALK_EPS, b.astype(dtype) - 1.0, xb)
+    x_barrier = jnp.where(u_b == 0.0, b.astype(dtype), x_osc)
+    # no barrier inside the grid: overshoot beyond the last bin (the
+    # deposit clamps to bin nkt-1, matching the reference's clipped walk)
+    x_barrier = jnp.where(b >= nkt, jnp.asarray(float(nkt), dtype),
+                          x_barrier)
+    return jnp.where(kstar < b, x_frac, x_barrier)
 
 
 def _walk_rightward(dt, u):
@@ -111,7 +128,6 @@ def _walk_rightward(dt, u):
     makes one partial backward segment before the oscillation stop
     (str.f90:5427-5454 semantics)."""
     nkt = u.shape[-1]
-    dtype = u.dtype
     i = jnp.arange(nkt)
     pos = u > 0.0
     inv = jnp.where(pos, 1.0 / jnp.where(pos, u, 1.0), 0.0)
@@ -129,29 +145,10 @@ def _walk_rightward(dt, u):
     kstar = _batched_searchsorted(S, target)
     kstop = jnp.minimum(kstar, b)
 
-    # fractional stop inside bin kstop (time exhausted before the barrier)
     ks = jnp.clip(kstop, 0, nkt - 1)
-    Pk = _take1(P, ks)
-    uk = _take1(u, ks)
-    R_in = dt - (Pk - P)                       # remaining on entering kstop
-    seg = jnp.minimum(R_in, 1.0 / jnp.maximum(uk, 1e-30))
-    x_frac = kstop.astype(dtype) + uk * seg
-
-    # barrier cases (kstar >= b, so remaining R > eps at the barrier bin)
     bs = jnp.clip(b, 0, nkt - 1)
-    ub = _take1(u, bs)
-    Pb = _take1(P, bs)
-    R = dt - (Pb - P)
-    dt0 = jnp.minimum(1.0 / jnp.maximum(jnp.abs(ub), 1e-30), R)
-    xb = b.astype(dtype) + ub * dt0
-    x_osc = jnp.where(R - dt0 > _WALK_EPS, b.astype(dtype) - 1.0, xb)
-    x_barrier = jnp.where(ub == 0.0, b.astype(dtype), x_osc)
-    # no barrier inside the grid: overshoot beyond the last bin (the
-    # deposit clamps to bin nkt-1, matching the reference's clipped walk)
-    x_barrier = jnp.where(b >= nkt, jnp.asarray(float(nkt), dtype),
-                          x_barrier)
-
-    return jnp.where(kstar < b, x_frac, x_barrier)
+    return walk_end(dt, kstar, b, kstop, _take1(P, ks) - P, _take1(u, ks),
+                    _take1(P, bs) - P, _take1(u, bs), nkt)
 
 
 def _walk_rightward_banded(dt, u, J):
@@ -163,7 +160,6 @@ def _walk_rightward_banded(dt, u, J):
     longer than J bins to the band edge (positive-definite, conservative).
     """
     nkt = u.shape[-1]
-    dtype = u.dtype
     i = jnp.arange(nkt)
     pos = u > 0.0
     inv = jnp.where(pos, 1.0 / jnp.where(pos, u, 1.0), 0.0)
@@ -184,13 +180,12 @@ def _walk_rightward_banded(dt, u, J):
         run = run + q.astype(jnp.int32)
     kstar = i + count
     b = i + 1 + run
-    b_inf = b >= nkt                          # all-positive to the grid top
     kstop = jnp.minimum(kstar, b)
 
     # banded gathers: offsets (ks - i), (bs - i) are in [0, J+1] whenever
     # the looked-up value is actually consumed (the b>=nkt clip can push
-    # bs - i beyond the band, but that case is overridden by b_inf below;
-    # the zero fill keeps the dead lanes finite)
+    # bs - i beyond the band, but walk_end overrides that case; the zero
+    # fill keeps the dead lanes finite)
     ks = jnp.clip(kstop, 0, nkt - 1)
     bs = jnp.clip(b, 0, nkt - 1)
     o_ks = ks - i
@@ -208,21 +203,7 @@ def _walk_rightward_banded(dt, u, J):
         uk = jnp.where(sel_k, ud, uk)
         Pb = jnp.where(sel_b, Pd, Pb)
         ub = jnp.where(sel_b, ud, ub)
-
-    # fractional stop inside bin kstop (time exhausted before the barrier)
-    R_in = dt - (Pk - P)
-    seg = jnp.minimum(R_in, 1.0 / jnp.maximum(uk, 1e-30))
-    x_frac = kstop.astype(dtype) + uk * seg
-
-    # barrier cases
-    R = dt - (Pb - P)
-    dt0 = jnp.minimum(1.0 / jnp.maximum(jnp.abs(ub), 1e-30), R)
-    xb = b.astype(dtype) + ub * dt0
-    x_osc = jnp.where(R - dt0 > _WALK_EPS, b.astype(dtype) - 1.0, xb)
-    x_barrier = jnp.where(ub == 0.0, b.astype(dtype), x_osc)
-    x_barrier = jnp.where(b_inf, jnp.asarray(float(nkt), dtype), x_barrier)
-
-    return jnp.where(kstar < b, x_frac, x_barrier)
+    return walk_end(dt, kstar, b, kstop, Pk - P, uk, Pb - P, ub, nkt)
 
 
 def _walk_banded(dt, u, J):
@@ -293,61 +274,14 @@ def _walk_loop(dt, u):
     return x0
 
 
-def bott_bin_advection(dt, u, z, band=None):
-    """Advect bin contents z along the bin axis with velocities u.
-
-    Args:
-      dt: timestep (scalar).
-      u: [..., nkt] velocity in bins/time at each bin (piecewise constant).
-      z: [..., nkt] bin contents (number densities).
-
-    Returns [..., nkt] advected contents.  Bins with fewer than YMIN
-    particles are dropped, matching the reference's significance cutoff.
-
-    Method: each source bin's content is traced along the characteristic
-    through the bin-indexed velocity field (integer jumps with per-bin time
-    splitting, str.f90:5427-5454), then deposited onto the two bracketing
-    destination bins using a Bott polynomial (order 1/2/4 by source
-    position) for the fractional part.
-    """
-    nkt = z.shape[-1]
-    dtype = z.dtype
-    i = jnp.arange(nkt)
-
-    ubc = jnp.broadcast_to(jnp.asarray(u, dtype), z.shape)
-    walk = _WALK
-    if walk == "auto":
-        # fused Pallas kernel on TPU; banded rolled XLA elsewhere (the
-        # kernel's VPU formulation interprets poorly on CPU)
-        walk = "pallas" if _tracing_for_tpu() else "banded"
-    if walk == "pallas":
-        from .bott_pallas import bott_advect_tpu
-        J = min(band if band is not None else _BAND, nkt)
-        return bott_advect_tpu(ubc, z, float(dt), band=J)
-    if walk == "banded":
-        J = min(band if band is not None else _BAND, nkt)
-        x0 = _walk_banded(dt, ubc, J)
-    elif walk == "vector":
-        x0 = _walk_vector(dt, ubc)
-    else:
-        x0 = _walk_loop(dt, ubc)
-
-    # ---- deposit with Bott polynomial for the fractional position ---------
-    k_low = jnp.floor(x0).astype(jnp.int32)
-    c0 = x0 - k_low
-    k_low = jnp.clip(k_low, 0, nkt - 1)
-    k_high = jnp.clip(k_low + 1, 0, nkt - 1)
-
-    def nb(off):
-        # neighbour z[i+off]; wraparound lanes are masked by the order
-        # selection below (edge bins use lower-order polynomials)
-        return jnp.roll(z, -off, axis=-1)
-
-    zm2, zm1, zp1, zp2 = nb(-2), nb(-1), nb(1), nb(2)
+def bott_split(c0, z, zm2, zm1, zp1, zp2, i, nkt):
+    """Content of each source bin going to its lower and upper destination
+    bins, (w_lo, w_hi), for fractional position c0: the Bott polynomial of
+    order 1 (edge bins), 2 (next to the edges) or 4 (interior) over the
+    neighbours z[i-2..i+2]; bins below YMIN deposit nothing."""
     al = 1.0 - 2.0 * c0
     al2 = al * al
     al3 = al2 * al
-
     # order 1 (first/last bin)
     x1_o1 = c0 * z
     # order 2 (second / second-last bin)
@@ -373,8 +307,71 @@ def bott_bin_advection(dt, u, z, band=None):
     x1 = jnp.where(c0 > 0.0, x1, 0.0)
 
     active_src = z >= YMIN
-    w_lo = jnp.where(active_src, z - x1, 0.0)
-    w_hi = jnp.where(active_src, x1, 0.0)
+    return (jnp.where(active_src, z - x1, 0.0),
+            jnp.where(active_src, x1, 0.0))
+
+
+def bott_bin_advection(dt, u, z, band=None):
+    """Advect bin contents z along the bin axis with velocities u.
+
+    With the default walk ("auto") the banded walk runs as the Pallas
+    kernels of physics/bott_triton.py on NVIDIA GPUs and as XLA array
+    code elsewhere, chosen per platform when the program is lowered;
+    "banded", "vector" and "loop" are XLA on every platform.
+
+    Args:
+      dt: timestep (scalar).
+      u: [..., nkt] velocity in bins/time at each bin (piecewise constant).
+      z: [..., nkt] bin contents (number densities).
+
+    Returns [..., nkt] advected contents.  Bins with fewer than YMIN
+    particles are dropped, matching the reference's significance cutoff.
+
+    Method: each source bin's content is traced along the characteristic
+    through the bin-indexed velocity field (integer jumps with per-bin time
+    splitting, str.f90:5427-5454), then deposited onto the two bracketing
+    destination bins using a Bott polynomial (order 1/2/4 by source
+    position) for the fractional part.
+    """
+    walk = _WALK
+    ubc = jnp.broadcast_to(jnp.asarray(u, z.dtype), z.shape)
+    J = min(band if band is not None else _BAND, z.shape[-1])
+    if walk == "auto":
+        from .bott_triton import bott_advect_gpu
+        return jax.lax.platform_dependent(
+            ubc, z,
+            cuda=lambda u, z: bott_advect_gpu(u, z, dt=float(dt), band=J),
+            default=lambda u, z: _bott_xla(dt, u, z, J, "banded"))
+    return _bott_xla(dt, ubc, z, J, walk)
+
+
+def _bott_xla(dt, ubc, z, J, walk):
+    """bott_bin_advection as XLA array code (walk: banded, vector, loop)."""
+    nkt = z.shape[-1]
+    dtype = z.dtype
+    i = jnp.arange(nkt)
+    if walk == "banded":
+        x0 = _walk_banded(dt, ubc, J)
+    elif walk == "vector":
+        x0 = _walk_vector(dt, ubc)
+    elif walk == "loop":
+        x0 = _walk_loop(dt, ubc)
+    else:
+        raise ValueError(f"MISTRA_BOTT_WALK={walk!r}: expected auto, "
+                         "banded, vector or loop")
+
+    # ---- deposit with Bott polynomial for the fractional position ---------
+    k_low = jnp.floor(x0).astype(jnp.int32)
+    c0 = x0 - k_low
+    k_low = jnp.clip(k_low, 0, nkt - 1)
+    k_high = jnp.clip(k_low + 1, 0, nkt - 1)
+
+    def nb(off):
+        # neighbour z[i+off]; wraparound lanes are masked by the order
+        # selection below (edge bins use lower-order polynomials)
+        return jnp.roll(z, -off, axis=-1)
+
+    w_lo, w_hi = bott_split(c0, z, nb(-2), nb(-1), nb(1), nb(2), i, nkt)
 
     if _DEPOSIT == "scatter":
         # batched scatter-add along the last axis: deposit each source
@@ -402,7 +399,7 @@ def bott_bin_advection(dt, u, z, band=None):
         # are the off-grid overshoots (x0 = nkt from an all-positive run,
         # x0 = -1 mirrored), which the reference clips to the edge bins —
         # route those explicitly to bins nkt-1 / 0.
-        D = min(band if band is not None else _BAND, nkt) + 2
+        D = J + 2
         dk_lo = k_low - i
         dk_hi = k_high - i
         over_t = ((dk_lo > D).astype(dtype) * w_lo
@@ -428,37 +425,9 @@ def bott_bin_advection(dt, u, z, band=None):
     return jnp.sum(contrib, axis=-2)
 
 
-def _tracing_for_tpu() -> bool:
-    """True when jit traces for a TPU device: honours the
-    ``jax.default_device(...)`` override (e.g. the bench's CPU baseline
-    runs with the TPU platform initialized but a CPU default device)."""
-    dev = jax.config.jax_default_device
-    if dev is not None:
-        return getattr(dev, "platform", str(dev)) == "tpu"
-    return jax.default_backend() == "tpu"
-
-
 def bott_dwsum(dt, u, z, e, band=None):
     """Water-mass change sum_k (psi - z)[k] * e[k] of the Bott advection,
-    per row, WITHOUT materializing psi.
-
-    On TPU this dispatches the deposit-free Pallas kernel (the mass grid
-    e is exactly geometric, grids.py:195-201, so destination masses are
-    exp-reconstructed in-register).  Elsewhere it simply advects and sums.
-    """
-    import numpy as np
-    walk = _WALK
-    if walk == "auto":
-        walk = "pallas" if _tracing_for_tpu() else "banded"
-    if walk == "pallas":
-        from .bott_pallas import bott_dwsum_tpu
-        e_np = np.asarray(e)
-        nkt = z.shape[-1]
-        lnfac = float(np.log(e_np[-1] / e_np[0]) / (len(e_np) - 1))
-        loge0 = float(np.log(e_np[0]))
-        J = min(band if band is not None else _BAND, nkt)
-        ubc = jnp.broadcast_to(jnp.asarray(u, z.dtype), z.shape)
-        return bott_dwsum_tpu(ubc, z, float(dt), loge0, lnfac, band=J)
+    per row."""
     psi = bott_bin_advection(dt, u, z, band=band)
     e_row = jnp.asarray(e, z.dtype)
     return jnp.sum((psi - z) * e_row, axis=-1)
@@ -473,8 +442,7 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
     """Condensational growth for a block of levels.
 
     Operates on all L levels at once (NOT per-level vmapped): the Bott
-    advection inside the Newton loop then sees one [L*nka, nkt] batch and
-    dispatches a single large-grid Pallas kernel instead of L tiny ones.
+    advection inside the Newton loop then sees one [L*nka, nkt] batch.
 
     Args:
       ffk: [L, nkt, nka] spectra.  totr: [L, mb] band radiation.
@@ -593,10 +561,8 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
     n_iter = int(os.environ.get("MISTRA_SUBKON_ITERS", "10"))
     if os.environ.get("MISTRA_SUBKON_LOOP", "while") == "while":
         # early-exit form: stop as soon as every level converged (the
-        # reference's per-level exit, lifted to the block).  The round-3
-        # while-loop pathology (~150x) was specific to the gather-heavy
-        # body; with the Pallas kernel the while form is ~3x faster than
-        # the fixed 10-iteration scan (typical convergence: 2-4 iters).
+        # reference's per-level exit, lifted to the block); "scan" runs
+        # the fixed n_iter iterations instead.
         def w_cond(c):
             itk, carry = c
             return (itk < n_iter) & jnp.any(~carry[-1])
@@ -606,8 +572,9 @@ def subkon(dt, ffk, totr, dfdt, feualt, pp, to_in, tn, xm1o_in, xm1n,
             carry, _ = body(carry, itk)
             return itk + 1, carry
 
-        _, (to, xm1o, _, fquer_used, _, _, done) = jax.lax.while_loop(
+        itk, (to, xm1o, _, fquer_used, _, _, done) = jax.lax.while_loop(
             w_cond, w_body, (jnp.zeros((), jnp.int32), init))
+        loop_stats.record("kon_newton", itk)
     else:
         (to, xm1o, _, fquer_used, _, _, done), _ = jax.lax.scan(
             body, init, jnp.arange(n_iter))

@@ -3,7 +3,7 @@ condensational growth and sedimentation as they land).
 
 Reference parity: ``rgl`` (str.f90:2164-2255) Newton iteration for the
 equilibrium radius, ``equil`` (str.f90:4801-4981) redistribution of each dry
-bin's particles onto the equilibrium water bin.  TPU-first: the per-bin /
+bin's particles onto the equilibrium water bin.  The per-bin /
 per-level loops become vectorized one-hot scatters over the full
 (nkt, nka, n) block, masked by the level selector.
 """
@@ -43,8 +43,8 @@ def rgl(r_dry, a, b, feu):
         x_next = jnp.where(done, xalt, xneu)
         return (x_next, new_done), None
 
-    # scan, not fori/while: while-loops execute their body ~100x slower
-    # than the rolled scan form on the current TPU runtime (round-4 A/B)
+    # fixed-length scan (converged lanes are frozen): no data-dependent
+    # trip count
     (x, _), _ = jax.lax.scan(body, (x0, jnp.zeros_like(x0, bool)),
                              None, length=100)
     r_eq = r_dry * x
@@ -83,8 +83,7 @@ def equil_redistribute(ff, t, feu, micro_grid, a0m, b0m, level_mask,
     eg = Z4PI3 * (rg ** 3 - rn[:, None] ** 3)  # water mass [mg]
 
     # first water bin with ew[jt] >= eg  (reference: while eg > ew(jt));
-    # compare-and-count instead of searchsorted: XLA gathers serialize
-    # under vmap batch dimensions on TPU
+    # branch-free compare-and-count
     jt = jnp.sum(ew < eg[..., None], axis=-1).astype(jnp.int32)
     jt = jnp.clip(jt, 0, nkt - 1)
 

@@ -7,9 +7,9 @@ advection with upstream/Bott-4th order selection by radius), ``advsed0/1``
 (str.f90:5522-5696), ``partdep``/``monin`` (str.f90:6233-6502,
 Seinfeld & Pandis resistance scheme).
 
-TPU-first: all 4900 bins advect in parallel; the Bott limiter's downward
-flux recurrence is a lax.scan over the nf levels with the bin axis vector-
-ized; the time-splitting while-loop becomes a fixed-bound masked loop.
+All 4900 bins advect in parallel; the Bott limiter's downward flux
+recurrence is a lax.scan over the nf levels with the bin axis vectorized;
+the time-splitting loop runs all bins together, masking finished ones.
 """
 
 from __future__ import annotations
@@ -21,12 +21,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..constants import CP, G, KAPPA, PI, R0, RHOW
+from ..utils import loop_stats
 
 # Courant-split loop form: "while" (data-dependent trip count) or "scan"
-# (fixed 16-pass bound).  Measured round 4 at batch=8 on TPU: while 13 ms
-# (early exit after ~2 passes) vs scan 41 ms (16 fixed passes) — unlike
-# the growth solver's Newton loop, this while body has no gather/scatter
-# ops, so it avoids the serialized-lowering pathology and stays fast.
+# (fixed 16-pass bound).
 _SPLIT_LOOP = os.environ.get("MISTRA_SEDP_LOOP", "while")
 
 
@@ -191,8 +189,7 @@ def sedp(model, state, dt):
         psi, dt0, ground, it = carry
         # hard iteration bound: the Courant split needs at most
         # ceil(dt / (deta_min / vterm_max)) passes (a handful); the bound
-        # guards the TPU watchdog against a non-finite dtmax spinning the
-        # loop forever
+        # stops a non-finite dtmax from spinning the loop forever
         return jnp.any(active_bin & (dt0 > 0.1)) & (it < 64)
 
     def body(carry):
@@ -235,8 +232,9 @@ def sedp(model, state, dt):
             body_scan, (psi, dt0_init, ground0, jnp.zeros((), jnp.int32)),
             None, length=16)
     else:
-        psi, dt0, ground, _ = jax.lax.while_loop(
+        psi, dt0, ground, n_pass = jax.lax.while_loop(
             cond, body, (psi, dt0_init, ground0, jnp.zeros((), jnp.int32)))
+        loop_stats.record("sedp_courant", n_pass)
 
     # write back: ff(2..nf-1) = psi/detw; ff(nf) = ff(nf-1)
     ff = mic.ff

@@ -1,6 +1,6 @@
 """Mellor-Yamada 2.5 turbulence closure.
 
-TPU-native reimplementation of the reference closure (``atk1``,
+Vectorized reimplementation of the reference closure (``atk1``,
 str.f90:3549-3841, and the startup variant ``atk0``, str.f90:3451-3543):
 all vertical loops become vectorized array ops with masks; the cloud-free /
 cloudy branch and the inversion search become where-selects so the whole

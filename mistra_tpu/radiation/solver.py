@@ -1,6 +1,6 @@
 """PIFM2 delta-two-stream radiative transfer solver.
 
-TPU-native reimplementation of the reference solver (``nstrahl`` and its 26
+Vectorized reimplementation of the reference solver (``nstrahl`` and its 26
 subroutines, nrad.f90:55-3043): 18 spectral bands (6 solar + 12 IR) with
 correlated-k gas absorption over 121 (band, quadrature) pairs.
 

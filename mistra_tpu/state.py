@@ -1,9 +1,10 @@
 """Model state as a single JAX pytree.
 
 The reference scatters state over ~60 COMMON blocks; here everything
-prognostic or time-varying lives in one nested ``flax.struct`` pytree so the
-whole model step is a pure function ``step(state, consts) -> state`` that
-jits, vmaps (column ensembles), shards and checkpoints trivially.
+prognostic or time-varying lives in one nested pytree of frozen
+dataclasses (``utils.pytree.pytree_dataclass``) so the whole model step is
+a pure function ``step(state, consts) -> state`` that jits, vmaps (column
+ensembles), shards and checkpoints trivially.
 
 Shapes are per-column (no batch axis); ensembles add a leading axis via
 ``jax.vmap`` / ``shard_map`` (see mistra_tpu.parallel).
@@ -12,13 +13,13 @@ Shapes are per-column (no batch axis); ensembles add a leading axis via
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from .utils.pytree import pytree_dataclass
 
 from .config import MistraConfig
 from .grids import Grids
 
 
-@struct.dataclass
+@pytree_dataclass
 class MetState:
     """Meteorological column state (reference cb42/cb45/cb53/cb54)."""
     u: jnp.ndarray        # [n] horizontal wind x [m/s]
@@ -40,7 +41,7 @@ class MetState:
     buoy: jnp.ndarray     # [n] buoyancy gradient term (filtered)
 
 
-@struct.dataclass
+@pytree_dataclass
 class TurbState:
     """Turbulence closure state (reference cb42/cb43)."""
     atke: jnp.ndarray     # [n] exchange coefficient for TKE [m2/s]
@@ -56,7 +57,7 @@ class TurbState:
     tkepd: jnp.ndarray    # [n] TKE dissipation (diagnostic)
 
 
-@struct.dataclass
+@pytree_dataclass
 class SurfaceState:
     """Surface / Prandtl layer state (reference data_surface + cb47)."""
     tw: jnp.ndarray       # water surface temperature [K]
@@ -81,7 +82,7 @@ class SurfaceState:
     ajd: jnp.ndarray      # dew flux
 
 
-@struct.dataclass
+@pytree_dataclass
 class MicroState:
     """2-D spectral bin microphysics state (reference cb52)."""
     ff: jnp.ndarray       # [nkt, nka, n] particle number density [1/cm3]
@@ -92,7 +93,7 @@ class MicroState:
     xra: jnp.ndarray      # aerodynamic resistance [s/m]
 
 
-@struct.dataclass
+@pytree_dataclass
 class RadState:
     """Radiation outputs carried between the 60-s radiation calls."""
     dtrad: jnp.ndarray    # [n] radiative heating rate [K/s]
@@ -102,7 +103,7 @@ class RadState:
     sl: jnp.ndarray       # downward longwave flux at the surface [W/m2]
 
 
-@struct.dataclass
+@pytree_dataclass
 class TimeState:
     time: jnp.ndarray     # model time [s]
     lday: jnp.ndarray     # local day counter (int32)
@@ -111,7 +112,7 @@ class TimeState:
     kinv: jnp.ndarray     # inversion layer index (0-based, int32)
 
 
-@struct.dataclass
+@pytree_dataclass
 class ModelState:
     met: MetState
     turb: TurbState

@@ -1,7 +1,7 @@
 """Tracing / profiling subsystem (SURVEY.md §5.1).
 
 The reference has no built-in profiling beyond a per-minute progress line
-(str.f90:516-531) and compiler-flag builds; the TPU framework makes
+(str.f90:516-531) and compiler-flag builds; this framework makes
 observability first-class:
 
 - ``trace(logdir)``: capture a ``jax.profiler`` device trace of any code
@@ -10,7 +10,7 @@ observability first-class:
   operator (difm, kon, sedp, nstrahl, kpp) is attributable on the timeline.
 - ``Roofline``: analytic per-kernel FLOP/byte cost model from the grid
   dimensions, used with measured wall time to report achieved fraction of
-  the chip's peak compute / HBM bandwidth.
+  the device's peak compute / memory bandwidth (``device_peaks``).
 - ``benchmark(fn, args)``: block-until-ready timing harness with compile
   time split out.
 """
@@ -24,11 +24,26 @@ from dataclasses import dataclass, field
 
 import jax
 
-# Peak numbers for the roofline denominators [per chip].  These are
-# conservative public figures for a v5e-class chip; override via
-# Roofline(peak_flops=..., peak_bw=...) for other hardware.
-PEAK_FLOPS_F32 = 197e12 / 2  # bf16 peak / 2 ~ f32 MXU peak
-PEAK_HBM_BW = 819e9          # bytes/s
+# Roofline denominators per device, keyed by ``jax.Device.device_kind``.
+# Source: NVIDIA H100 Tensor Core GPU datasheet, SXM5 part, dense rates
+# (no sparsity) at the full 700 W power limit.  FLOP/s per precision:
+# fp64 (CUDA cores), fp64_tc (tensor cores), fp32, tf32 (tensor cores),
+# bf16 (tensor cores); hbm in bytes/s.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "fp64": 34e12, "fp64_tc": 67e12, "fp32": 67e12, "tf32": 495e12,
+        "bf16": 989e12, "hbm": 3.35e12},
+}
+
+
+def device_peaks(device_kind: str) -> dict:
+    """Published peak rates of a device; an unknown device is an error."""
+    try:
+        return DEVICE_PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; add them "
+            f"to DEVICE_PEAKS with their source") from None
 
 
 @contextlib.contextmanager
@@ -80,15 +95,22 @@ class KernelCost:
 @dataclass
 class Roofline:
     """Roofline bookkeeping: register analytic kernel costs, then report
-    achieved compute / bandwidth fractions from measured wall time."""
-    peak_flops: float = PEAK_FLOPS_F32
-    peak_bw: float = PEAK_HBM_BW
+    achieved compute / bandwidth fractions from measured wall time.
+
+    The peaks come from ``device_peaks`` or are given explicitly;
+    ``report`` refuses to run without them.
+    """
+    peak_flops: float | None = None
+    peak_bw: float | None = None
     kernels: dict = field(default_factory=dict)
 
     def add(self, cost: KernelCost):
         self.kernels[cost.name] = cost
 
     def report(self, name: str, wall_s: float, batch: int = 1) -> dict:
+        if self.peak_flops is None or self.peak_bw is None:
+            raise ValueError("Roofline has no peaks; take them from "
+                             "device_peaks(device_kind)")
         c = self.kernels[name]
         flops = c.flops * batch
         byts = c.bytes * batch
@@ -130,6 +152,55 @@ def model_costs(cfg, dtype_bytes: int = 4) -> Roofline:
     r.add(KernelCost("nstrahl", 121 * nrlay * 60.0,
                      121 * nrlay * dtype_bytes * 6))
     return r
+
+
+# derived timelines the profiler adds beside the per-stream kernel lines
+_DERIVED_LINES = ("XLA Modules", "XLA Ops", "Steps", "Framework Name Scope",
+                  "Framework Ops", "Source code", "Launch Stats")
+
+
+def device_busy(trace_dir: str) -> dict:
+    """Busy and idle time of each device in a ``jax.profiler`` trace.
+
+    Busy is the union of the intervals of the events on the device's
+    stream lines (kernels and copies); the window runs from the first
+    event's start to the last event's end on that device, and the idle
+    share is 1 - busy / window.  Host time before the first or after the
+    last device event is not in the window.  Returns
+    {plane name: {"busy_s", "window_s", "idle_share", "events"}}; an
+    empty dict when the trace holds no device plane (a CPU run).
+    """
+    import glob
+    import os
+    paths = sorted(glob.glob(os.path.join(
+        trace_dir, "plugins", "profile", "*", "*.xplane.pb")))
+    if not paths:
+        raise FileNotFoundError(f"no .xplane.pb under {trace_dir}")
+    data = jax.profiler.ProfileData.from_file(paths[-1])
+    out = {}
+    for plane in data.planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        lines = list(plane.lines)
+        streams = [ln for ln in lines if "Stream" in ln.name] or \
+            [ln for ln in lines if ln.name not in _DERIVED_LINES]
+        spans = sorted((ev.start_ns, ev.end_ns) for ln in streams
+                       for ev in ln.events)
+        if not spans:
+            continue
+        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        window = max(e for _, e in spans) - spans[0][0]
+        out[plane.name] = {"busy_s": busy * 1e-9, "window_s": window * 1e-9,
+                           "idle_share": 1.0 - busy / window if window
+                           else 0.0, "events": len(spans)}
+    return out
 
 
 def print_report(rows):

@@ -1,7 +1,7 @@
 """Implicit vertical diffusion solves (Thomas algorithm) as JAX scans.
 
-TPU-first design: the vertical axis (n=150) is a *sequential* first-order
-recurrence kept on-chip as a ``lax.scan``; the parallel axes are the
+Design: the vertical axis (n=150) is a *sequential* first-order
+recurrence kept on the device as a ``lax.scan``; the parallel axes are the
 column-ensemble batch (via vmap/shard_map) and the trailing field axis
 (multiple prognostic fields, or the 4900 microphysics bins, solved in one
 sweep as a vector RHS).  This mirrors the reference's semi-implicit scheme

@@ -1,7 +1,7 @@
 // Serial sparse-LU chemistry stage benchmark — the reference's
 // execution model (KPP-generated KppDecomp/KppSolve, one cell at a
 // time on one core; /root/reference/src/tot.f:39468, gas.f:6142-6236)
-// reproduced from the same static symbolic structure the TPU solver
+// reproduced from the same static symbolic structure the JAX solver
 // uses, compiled -O3 on this machine.  This anchors the "reference
 // serial CPU" side of the chemistry cell-steps/s comparison, since no
 // Fortran compiler exists in this image (g++ on the same flat

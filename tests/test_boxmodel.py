@@ -13,9 +13,10 @@ def tiny_grid():
 
 class TestBoxMode:
     @pytest.fixture(scope="class")
-    def box(self):
+    def box(self, reference_inpdir, mechdir):
         from mistra_tpu.boxmodel import BoxModel
         cfg = MistraConfig(grid=tiny_grid(), chem=True, mic=True, nkc_l=0,
+                           inpdir=reference_inpdir, mechdir=mechdir,
                            zinv=100.0, box=True, nlevbox=5, z_box=50.0,
                            rst=False, netcdf=False)
         return BoxModel(cfg)
@@ -40,9 +41,10 @@ class TestBoxMode:
 
 
 class TestChamberMode:
-    def test_chamber_lights_schedule(self):
+    def test_chamber_lights_schedule(self, reference_inpdir, mechdir):
         from mistra_tpu.boxmodel import BoxModel
         cfg = MistraConfig(grid=tiny_grid(), chem=True, mic=True, nkc_l=0,
+                           inpdir=reference_inpdir, mechdir=mechdir,
                            zinv=100.0, chamber=True, z_box=50.0,
                            rst=False, netcdf=False)
         bm = BoxModel(cfg)

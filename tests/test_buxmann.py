@@ -16,11 +16,13 @@ from mistra_tpu.chemistry.gas_kernel import GasKernel
 from mistra_tpu.chemistry.mech import (load_gas_mechanism,
                                        load_multiphase_mechanism)
 
-BUXDIR = "/root/reference/src/mech_Buxmann15alpha"
+@pytest.fixture(scope="module")
+def buxdir(mechdir):
+    return mechdir.rstrip("/") + "_Buxmann15alpha"
 
 
-def test_buxmann_gas_mechanism_loads():
-    m = load_gas_mechanism(BUXDIR)
+def test_buxmann_gas_mechanism_loads(buxdir):
+    m = load_gas_mechanism(buxdir)
     # KPP regenerates NVAR=108 / NREACT=347 for this variant (the six
     # new gas reactions C50-C53 + the two dummy closures)
     assert m.nvar == 108
@@ -29,10 +31,10 @@ def test_buxmann_gas_mechanism_loads():
         assert sp in m.species, sp
 
 
-def test_buxmann_tot_block_solver():
+def test_buxmann_tot_block_solver(buxdir):
     """The 427-var Buxmann tot mechanism keeps the block-arrow shape
     and the stage solver stays exact."""
-    mech = load_multiphase_mechanism(BUXDIR, name="tot")
+    mech = load_multiphase_mechanism(buxdir, name="tot")
     assert mech.nvar == 427
     assert mech.nrxn == 1645
     kern = GasKernel(mech, dtype=jnp.float64, solver="block")
@@ -56,7 +58,7 @@ def test_buxmann_tot_block_solver():
 
 
 @pytest.mark.slow
-def test_buxmann_chamber_minute():
+def test_buxmann_chamber_minute(buxdir, reference_inpdir):
     """One chamber minute with the variant mechanism + species CSV
     (gas chemistry; the 3-h acceptance run lives in the harness)."""
     from mistra_tpu.boxmodel import BoxModel
@@ -64,7 +66,7 @@ def test_buxmann_chamber_minute():
 
     cfg = MistraConfig(
         chamber=True, box=False, chem=True, mic=False, halo=True,
-        iod=False, nkc_l=0, mechdir=BUXDIR,
+        iod=False, nkc_l=0, mechdir=buxdir, inpdir=reference_inpdir,
         cgaslistfile="gas_species_Buxmann15.csv",
         grid=GridParams(nf=20, n_extra=10, nka=8, nkt=8, nb=8),
         zinv=100.0, tw=288.40, rhsurf=0.6, ug=7.0, vg=0.0,

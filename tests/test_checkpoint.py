@@ -16,8 +16,9 @@ from mistra_tpu.model import Model
 
 
 @pytest.fixture(scope="module")
-def model():
+def model(synthetic_inpdir):
     cfg = MistraConfig(chem=False, mic=False, dtype="float64",
+                       inpdir=synthetic_inpdir,
                        grid=GridParams(nf=16, n_extra=8, nka=8, nkt=8,
                                        nb=8),
                        zinv=100.0, tw=288.15, dtinv=7.0, ug=8.5, vg=0.0,

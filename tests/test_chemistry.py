@@ -10,9 +10,6 @@ from mistra_tpu.chemistry.gas_kernel import GasKernel, load_species_csv
 from mistra_tpu.chemistry.mech import load_gas_mechanism, parse_eqn
 from mistra_tpu.chemistry.rates import RateEnv
 
-MECHDIR = "/root/reference/src/mech/"
-
-
 def _env(B=1, te=288.15, dark=True):
     am3 = 101325.0 / (8.3144743 * te)
     cm3 = am3 * 6.022140857e17
@@ -58,8 +55,8 @@ class TestToyMechanism:
 
 class TestGasMechanism:
     @pytest.fixture(scope="class")
-    def mech(self):
-        return load_gas_mechanism(MECHDIR)
+    def mech(self, mechdir):
+        return load_gas_mechanism(mechdir)
 
     def test_mechanism_size(self, mech):
         # exact parity with the KPP-generated gas mechanism:
@@ -84,10 +81,10 @@ class TestGasMechanism:
         assert mech.stoich[0, sp["O1D"]] == -1
         assert mech.stoich[0, sp["O3P"]] == 1
 
-    def test_dark_stability_and_positivity(self, mech):
+    def test_dark_stability_and_positivity(self, mech, mechdir):
         kern = GasKernel(mech)
         env, am3 = _env(B=2)
-        sp_csv = load_species_csv(MECHDIR + "gas_species.csv")
+        sp_csv = load_species_csv(mechdir + "gas_species.csv")
         name2i = {s: i for i, s in enumerate(mech.species)}
         y0 = np.zeros((2, mech.nvar))
         xm = am3 * 1e-9

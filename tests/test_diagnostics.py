@@ -12,9 +12,6 @@ from mistra_tpu.chemistry.diagnostics import (element_counts,
                                               ion_balance, ion_charge)
 from mistra_tpu.chemistry.mech import load_multiphase_mechanism
 
-MECHDIR = "/root/reference/src/mech"
-
-
 def test_element_counts_gas_names():
     sp = ["Cl2", "BrCl", "HCl", "CH2I2", "N2O5", "DMS", "SO2", "INO2"]
     assert element_counts(sp, "Cl").tolist() == [2, 1, 1, 0, 0, 0, 0, 0]
@@ -42,8 +39,8 @@ def test_ion_charges():
     assert ion_charge("Cl2", binned=False) == 0
 
 
-def test_species_bin_assignment():
-    tot = load_multiphase_mechanism(MECHDIR, bins=(1, 2, 3, 4), name="tot")
+def test_species_bin_assignment(mechdir):
+    tot = load_multiphase_mechanism(mechdir, bins=(1, 2, 3, 4), name="tot")
     n2i = {s: i for i, s in enumerate(tot.species)}
     assert tot.species_bin[n2i["Cl2"]] == 0          # gas, despite "l2"
     assert tot.species_bin[n2i["Cl2l1"]] == 1
@@ -78,13 +75,13 @@ def test_species_production_loss():
     assert ch[0] == (0, 3.0) and ch[1] == (1, -1.0)
 
 
-def test_sulfur_budget_channels():
+def test_sulfur_budget_channels(mechdir):
     """S/DMS budget channels (bud_s_{g,a,t}.f generalized): every
     S-moving reaction is a channel; the gas mechanism's DMS oxidation
     chain must be covered."""
     from mistra_tpu.chemistry.diagnostics import sulfur_reaction_channels
     from mistra_tpu.chemistry.mech import load_gas_mechanism
-    m = load_gas_mechanism("/root/reference/src/mech")
+    m = load_gas_mechanism(mechdir)
     idx, labels = sulfur_reaction_channels(m)
     assert len(idx) >= 40          # reference gas file records 13 of 122
     # the named reference channels (bud_s_g.f:71-84) are all S-labelled

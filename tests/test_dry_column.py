@@ -9,8 +9,9 @@ from mistra_tpu.model import Model
 
 
 @pytest.fixture(scope="module")
-def model():
+def model(synthetic_inpdir):
     cfg = MistraConfig(chem=False, mic=False, lstmax=1, tw=288.15,
+                       inpdir=synthetic_inpdir,
                        ug=8.5, vg=0.0, zinv=800.0, dtinv=7.0,
                        xm1w=0.009, xm1i=0.004, nw_prof_opt=1,
                        wmax=-0.005, z0=0.0001, alat=55.0,

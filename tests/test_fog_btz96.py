@@ -7,12 +7,13 @@ longwave cooling saturates the boundary layer and a fog layer forms
 near the surface within the first night, deepening with LWC of a few
 tenths of a g/kg.
 
-On the TPU chip this run costs ~5 s per model hour; on the 2-CPU test
-host the 5-hour march below takes ~10 min, hence the slow marker.
-Measured reference behavior of this implementation at full grid
-(float32): LWC_max 0.22/0.31/0.41 g/kg at hours 4/5/6 with the fog top
-rising through ~300 m and the surface cooling by ~1.5 K.
+On a small CPU host the 5-hour march below takes ~10 min, hence the slow
+marker.  Earlier runs of this implementation at full grid (float32) on the
+reference tables gave LWC_max 0.22/0.31/0.41 g/kg at hours 4/5/6 with the
+fog top rising through ~300 m and the surface cooling by ~1.5 K.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -23,12 +24,11 @@ import jax.numpy as jnp
 from mistra_tpu.config import config_from_namelist
 from mistra_tpu.model import Model
 
-NAMELIST = "/root/reference/namelists/namelist.BTZ96"
-
-
 @pytest.mark.slow
-def test_btz96_forms_fog():
-    cfg = config_from_namelist(NAMELIST, dtype="float32")
+def test_btz96_forms_fog(reference_root, reference_inpdir):
+    cfg = config_from_namelist(
+        os.path.join(reference_root, "namelists", "namelist.BTZ96"),
+        dtype="float32", inpdir=reference_inpdir)
     model = Model(cfg)
     state = model.init_state()
     step = model.jit_minute_step()

@@ -5,8 +5,12 @@ import pytest
 
 from mistra_tpu.io import netcdf as ncio
 
-pytestmark = pytest.mark.skipif(not ncio.available(),
-                                reason="native netCDF lib unavailable")
+
+@pytest.fixture(autouse=True)
+def _native_writer():
+    """Skip where the native library cannot be built or loaded."""
+    if not ncio.available():
+        pytest.skip(f"native netCDF writer unavailable: {ncio._LIB_ERR!r}")
 
 
 def test_roundtrip_async(tmp_path):
@@ -48,7 +52,7 @@ def test_classic_format_magic(tmp_path):
     assert magic[:3] == b"CDF"
 
 
-def test_output_writer_mic(tmp_path):
+def test_output_writer_mic(tmp_path, synthetic_inpdir):
     """Full writer with microphysics on: regression for the two-unlimited-
     dims bug (classic netCDF allows one per file) and the ff/part1D
     dimension-order mismatches."""
@@ -56,6 +60,7 @@ def test_output_writer_mic(tmp_path):
     from mistra_tpu.model import Model
 
     cfg = MistraConfig(chem=False, mic=True, dtype="float32",
+                       inpdir=synthetic_inpdir,
                        grid=GridParams(nf=8, n_extra=4, nka=8, nkt=8, nb=4),
                        zinv=60.0, tw=288.15, dtinv=7.0, ug=8.5, vg=0.0,
                        nw_prof_opt=1, wmax=-0.005, z0=0.0001, alat=55.0)

@@ -178,18 +178,19 @@ class TestFogFormation:
     """Integration: BTZ96-like run with microphysics develops fog LWC."""
 
     @pytest.fixture(scope="class")
-    def model(self):
+    def model(self, synthetic_inpdir):
         from mistra_tpu.config import GridParams, MistraConfig
         from mistra_tpu.model import Model
         # reduced grid: full physics structure at ~1/10 the size so the
         # integration fits the CPU test budget (full size is covered by
-        # bench.py and the TPU runs)
+        # chip_smoke.py on the GPU)
         grid = GridParams(nf=40, n_extra=14, nka=24, nkt=24, nb=12)
         cfg = MistraConfig(chem=False, mic=True, tw=288.15, ug=8.5, vg=0.0,
                            zinv=300.0, dtinv=7.0, xm1w=0.009, xm1i=0.004,
                            nw_prof_opt=1, wmax=-0.005, z0=0.0001, alat=55.0,
                            rnw0=0.01, rnw1=2.0, rw0=0.01, rw1=80.0,
-                           nday=21, nmonth=7, nyear=1982, grid=grid)
+                           nday=21, nmonth=7, nyear=1982, grid=grid,
+                           inpdir=synthetic_inpdir)
         return Model(cfg)
 
     def test_microphysics_run_stable(self, model):

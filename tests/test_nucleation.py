@@ -37,9 +37,10 @@ def test_oionucl_magnitude():
 
 
 @pytest.fixture(scope="module")
-def nuc_model():
+def nuc_model(reference_inpdir, mechdir):
     grid = GridParams(nf=20, n_extra=10, nka=16, nkt=16, nb=8)
     cfg = MistraConfig(chem=True, mic=True, dtype="float64", tw=288.15,
+                       inpdir=reference_inpdir, mechdir=mechdir,
                        zinv=100.0, dtinv=7.0, ug=8.5, vg=0.0,
                        nw_prof_opt=1, wmax=-0.005, z0=0.0001, alat=55.0,
                        nkc_l=0, nuc=True, napari=True, lovejoy=True,

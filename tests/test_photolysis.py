@@ -5,12 +5,9 @@ import pytest
 
 from mistra_tpu.photolysis.tables import load_photolysis_tables
 
-PHOT_DIR = "/root/reference/input/photolys/"
-
-
 @pytest.fixture(scope="module")
-def tb():
-    return load_photolysis_tables(PHOT_DIR)
+def tb(reference_inpdir):
+    return load_photolysis_tables(reference_inpdir + "photolys/")
 
 
 class TestTables:
@@ -42,11 +39,12 @@ class TestTables:
 
 
 @pytest.fixture(scope="module")
-def noon_j():
+def noon_j(reference_inpdir):
     from mistra_tpu.config import MistraConfig
     from mistra_tpu.model import Model
     from mistra_tpu.photolysis.jrates import PhotolysisDriver
     cfg = MistraConfig(chem=False, mic=False, tw=288.15, zinv=800.0,
+                       inpdir=reference_inpdir,
                        dtinv=7.0, alat=55.0, nday=21, nmonth=7,
                        nyear=1982, nhour=12)
     m = Model(cfg)

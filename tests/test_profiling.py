@@ -3,8 +3,11 @@
 import jax
 import jax.numpy as jnp
 
+import pytest
+
 from mistra_tpu.utils.profiling import (KernelCost, Roofline, annotate,
-                                        benchmark, model_costs, trace)
+                                        benchmark, device_peaks,
+                                        model_costs, trace)
 
 
 def test_benchmark_and_annotate():
@@ -27,6 +30,22 @@ def test_roofline_report():
     assert abs(rep["pct_peak_flops"] - 100.0) < 1e-6
 
 
+def test_device_peaks_h100_and_unknown():
+    pk = device_peaks("NVIDIA H100 80GB HBM3")
+    assert pk["fp64"] == 34e12 and pk["tf32"] == 495e12
+    assert pk["hbm"] == 3.35e12
+    assert pk["fp64_tc"] == 67e12 and pk["fp32"] == 67e12
+    with pytest.raises(ValueError, match="no published peaks"):
+        device_peaks("cpu")
+
+
+def test_roofline_without_peaks_raises():
+    r = Roofline()
+    r.add(KernelCost("k", flops=1.0, bytes=1.0))
+    with pytest.raises(ValueError, match="no peaks"):
+        r.report("k", wall_s=1.0)
+
+
 def test_model_costs_registry():
     from mistra_tpu.config import GridParams, MistraConfig
     cfg = MistraConfig(grid=GridParams(nf=12, n_extra=6, nka=16, nkt=16,
@@ -42,3 +61,15 @@ def test_trace_context(tmp_path):
         jnp.sum(jnp.ones((8, 8))).block_until_ready()
     # a trace directory must have been produced
     assert any(tmp_path.iterdir())
+
+
+def test_device_busy_on_cpu_trace(tmp_path):
+    """A CPU trace has no device plane: the reduction returns nothing
+    rather than inventing device numbers."""
+    from mistra_tpu.utils.profiling import device_busy
+    with trace(str(tmp_path)):
+        jnp.sum(jnp.ones((8, 8))).block_until_ready()
+    assert device_busy(str(tmp_path)) == {}
+    import pytest
+    with pytest.raises(FileNotFoundError):
+        device_busy(str(tmp_path / "missing"))

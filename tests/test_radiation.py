@@ -6,13 +6,9 @@ import pytest
 from mistra_tpu.radiation import tables as T
 
 
-@pytest.fixture(scope="module")
-def tb():
-    return T.load_pifm2("/root/reference/input/")
-
-
 class TestTables:
-    def test_pifm2_parsing(self, tb):
+    def test_pifm2_parsing(self, reference_inpdir):
+        tb = T.load_pifm2(reference_inpdir)
         # total solar energy matches the value the reference derives
         assert abs(tb.s0tot - 1339.94507) < 1e-4
         # quadrature weights per band sum to ~1
@@ -23,10 +19,10 @@ class TestTables:
         assert abs(tb.ret[0] - 4.18e-6) < 1e-9
         assert abs(tb.ret[-1] - 3.123e-5) < 1e-9
 
-    def test_mie_interpolation(self, tb):
+    def test_mie_interpolation(self, synthetic_inpdir):
         from mistra_tpu.config import MistraConfig
         from mistra_tpu.grids import make_grids
-        mie = T.load_mie_tables("/root/reference/input/")
+        mie = T.load_mie_tables(synthetic_inpdir)
         g = make_grids(MistraConfig(chem=False))
         qa, qe, asym = T.interpolate_particle_optics(
             mie, g.micro.rn, g.micro.rq)
@@ -59,12 +55,13 @@ class TestPlanck:
 
 class TestFullSolve:
     @pytest.fixture(scope="class")
-    def states(self):
+    def states(self, synthetic_inpdir):
         from mistra_tpu.config import MistraConfig
         from mistra_tpu.model import Model
         out = {}
         for label, hour in [("noon", 12), ("midnight", 0)]:
             cfg = MistraConfig(chem=False, mic=False, tw=288.15, zinv=800.0,
+                               inpdir=synthetic_inpdir,
                                dtinv=7.0, alat=55.0, nday=21, nmonth=7,
                                nyear=1982, nhour=hour)
             m = Model(cfg)
